@@ -1,13 +1,13 @@
-"""basic_sparse_matrix_tpu — a TPU-native sparse linear-algebra framework.
+"""basic_sparse_matrix_tpu — a sparse linear-algebra framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-expression of the capability surface of the
+A from-scratch JAX/XLA re-expression of the capability surface of the
 reference crate ``jamieapps101/Basic_Sparse_Matrix`` (mounted at
 ``/root/reference``): CSR/COO construction, transpose, reductions, sparse
 add/sub, SpMM/SpMV/SpGEMM, Cholesky, QR, QR-iteration eigenvalues, and the
 Cholesky triangular-solve pipeline — plus the layers the reference lacks:
-Pallas MXU kernels for the hot paths, a sharding/collectives layer for
-multi-chip/multi-host scale-out, a native (C++) host runtime for symbolic
-analysis, and a roofline bench harness.
+density-dispatched device paths for the hot operations, a
+sharding/collectives layer for multi-device/multi-host scale-out, a native
+(C++) host runtime for symbolic analysis, and a roofline bench harness.
 
 Layer map (mirrors SURVEY.md §1):
 * ``utils``    — shape/dtype vocabulary + error model (reference util.rs)

@@ -2,8 +2,8 @@
 
 Reference counterpart: ``cholesky_decomp`` / ``solve``
 (``/root/reference/src/sparse.rs:682-714``, ``/root/reference/src/
-lib.rs:11-24``) — value-level parity only; the schedule here is TPU-native
-design with no reference analogue.
+lib.rs:11-24``) — value-level parity only; the schedule here is a
+device-native design with no reference analogue.
 
 After an RCM preordering, the benchmark-family matrices (2D/3D Laplacians,
 ``bcsstk``-like stiffness patterns) are *banded*: ``a[i, j] == 0`` for
@@ -11,16 +11,15 @@ After an RCM preordering, the benchmark-family matrices (2D/3D Laplacians,
 ``nb >= bw`` makes A block-tridiagonal, and Cholesky preserves the band.
 The factorization then collapses from hundreds of irregular fan-in levels
 (the supernodal schedule at n=4096 RCM has 455) to ``m`` *identically
-shaped* dense steps — one ``lax.scan`` of MXU-sized potrf/trsm/syrk ops:
+shaped* dense steps — one ``lax.scan`` of dense potrf/trsm/syrk ops:
 
     L_0 = chol(D_0)
     F_{i-1} = E_{i-1} · L_{i-1}^{-T}          (trsm)
     L_i = chol(D_i − F_{i-1} F_{i-1}ᵀ)        (syrk + potrf)
 
-and both triangular solves are block-bidiagonal scans. Regular shapes are
-what the chip wants (BENCH_RESULTS.md r2: RCM's shape regularity beats ND's
-47 % fill advantage on device time); this path takes that finding to its
-limit — *one* shape for the whole factorization.
+and both triangular solves are block-bidiagonal scans. Regular shapes
+compile to few programs and batch well; this path takes that to its limit
+— *one* shape for the whole factorization.
 
 The tail block is padded with an identity diagonal so every scan step is
 the same (nb, nb) shape; padded rows of the RHS are zero and decouple.
@@ -37,7 +36,7 @@ import jax.scipy.linalg as jsl
 import numpy as np
 
 from ..ops.csr import CSR
-from ..utils.config import matmul_precision
+from ..utils.config import factor_precision, matmul_precision
 from ..utils.errors import IncorrectDimensions, NonSquareMatrix, check
 
 
@@ -45,7 +44,7 @@ from ..ops.reorder import bandwidth  # noqa: E402  (host O(nnz) band scan)
 
 
 def block_size_for(bw: int, n: int | None = None) -> int:
-    """MXU-aligned (multiple-of-8) block size covering half-bandwidth ``bw``.
+    """Multiple-of-8 block size covering half-bandwidth ``bw``.
 
     Any ``nb >= bw`` is valid; larger blocks trade flops (O(n·nb²) total)
     for fewer sequential scan steps (m = n/nb, each with fixed dispatch
@@ -128,6 +127,11 @@ def band_blocks(a: CSR, nb: int):
 @jax.jit
 def cholesky_banded_blocks(D: jax.Array, E: jax.Array):
     """Block-tridiagonal Cholesky as one ``lax.scan`` over block rows."""
+    with factor_precision():
+        return _cholesky_banded_blocks(D, E)
+
+
+def _cholesky_banded_blocks(D, E):
     prec = matmul_precision()
     l0 = jnp.linalg.cholesky(D[0])
 

@@ -2,15 +2,15 @@
 
 Reference counterpart: ``solve`` (``/root/reference/src/lib.rs:11-24``) at
 value level only; the algorithm has no reference analogue — it exists
-because of the TPU cost model. The banded scan (``models/banded.py``) is
-O(m) *sequential* block steps; each step is a small potrf/trsm/syrk with
-fixed dispatch latency (~26 µs measured), so wall-clock at large m is
-step-count-bound, not flop-bound. Cyclic reduction restructures the
+because of the device cost model. The banded scan (``models/banded.py``) is
+O(m) *sequential* block steps; each step is a small potrf/trsm/syrk with a
+fixed launch latency, so wall-clock at large m is step-count-bound, not
+flop-bound. Cyclic reduction restructures the
 elimination: each level eliminates every odd-indexed block *in parallel*
 (one batched Cholesky + batched triangular solves + batched matmuls over
 m/2 blocks), producing a block-tridiagonal system of half the size — the
-whole solve is 2·log2(m) *batched* MXU steps at ~4× the flops, exactly the
-trade this hardware wants.
+whole solve is 2·log2(m) *batched* steps at ~4× the flops, the trade an
+accelerator wants.
 
 Level algebra (row i: ``E_{i-1} x_{i-1} + D_i x_i + E_iᵀ x_{i+1} = b_i``,
 ``E_i`` couples block i+1 to block i):
@@ -38,7 +38,7 @@ import jax
 import jax.numpy as jnp
 
 from ..ops.csr import CSR
-from ..utils.config import matmul_precision
+from ..utils.config import factor_precision, matmul_precision
 from .banded import _blocked_rhs, band_blocks, bandwidth, block_size_for
 
 
@@ -107,6 +107,11 @@ def factor_bcr(D: jax.Array, E: jax.Array) -> "BCRFactor":
     """Eliminate odd blocks level by level (all batched). The level loop is
     a Python loop over statically halving shapes — it unrolls at trace
     time into log2(m) batched stages."""
+    with factor_precision():
+        return _factor_bcr(D, E)
+
+
+def _factor_bcr(D, E):
     n = int(D.shape[0]) * int(D.shape[1])
     D, E = _pad_pow2(D, E)
     ls, wls, wrs, elefts, erights = [], [], [], [], []

@@ -9,7 +9,7 @@ to produce the factor *values* any way that matches.
 
 Paths:
 * :func:`cholesky_dense` — jittable dense factorization (XLA's blocked
-  Cholesky, MXU-tiled). The right tool at reference scale and for dense-ish
+  Cholesky). The right tool at reference scale and for dense-ish
   SPD blocks.
 * :func:`cholesky` — CSR→CSR wrapper with the reference's ``NonSquareMatrix``
   error; densifies, factors on device, re-sparsifies on host (exact zeros
@@ -54,7 +54,7 @@ cholesky_decomp = cholesky
 def cholesky_auto(a: CSR) -> CSR:
     """Dispatch: dense XLA path for small/dense matrices; for large sparse
     SPD, the supernodal panel factorization when the pattern amalgamates
-    into panels (average width ≥ 2 — dense MXU updates), else the scalar
+    into panels (average width ≥ 2 — dense panel updates), else the scalar
     scatter-list path."""
     check(a.rows == a.cols, NonSquareMatrix,
           f"cholesky requires square matrix, got {a.dims}")
@@ -76,7 +76,7 @@ def cholesky_auto(a: CSR) -> CSR:
         return _bd.assemble_factor_csr(_bd.factor_banded(a, nb))
     width, _ = _sn.supernode_stats(a, relax=cfg.supernodal_relax)
     if width >= 2.0:
-        # panels amalgamate → dense MXU updates pay off
+        # panels amalgamate → dense panel updates pay off
         import jax
         import numpy as np
 

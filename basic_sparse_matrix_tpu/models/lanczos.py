@@ -3,10 +3,10 @@
 The reference's ``eigen_values`` (``/root/reference/src/sparse.rs:758-774``)
 is an unshifted dense QR iteration; this framework ports that surface in
 ``models/qr.py`` but guards it with the densify byte budget — a 200k×200k
-sparse operand has no dense path at all. Lanczos is the TPU-native answer
+sparse operand has no dense path at all. Lanczos is the device-native answer
 for that regime: the only touch of A is one SpMV per step (the ELL
 gather+FMA kernel when the padding overhead permits, same dispatch as PCG),
-and everything else is (k, n) × (n,) matmuls that XLA maps onto the MXU.
+and everything else is (k, n) × (n,) matmuls.
 
 Design notes
 ------------
@@ -15,7 +15,7 @@ Design notes
 * Full reorthogonalisation every step (classical Gram-Schmidt applied
   twice against the stored basis). Plain three-term Lanczos loses
   orthogonality in f32 after a few dozen steps and produces spurious ghost
-  eigenvalue copies; two dense (k, n) matmuls per step are cheap on the MXU
+  eigenvalue copies; two dense (k, n) matmuls per step are cheap
   and buy exact-basis behaviour. Rows of V beyond the current step are zero,
   so no masking is needed — zero rows project to zero.
 * Breakdown (β ≈ 0 — an invariant subspace was found) is handled in-graph:

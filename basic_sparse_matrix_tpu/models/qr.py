@@ -6,7 +6,7 @@ SpGEMMs, submatrix shrinks and re-embeddings (O(n⁴)-ish) — and
 ``eigen_values`` (sparse.rs:758-774), unshifted QR iteration with a
 caller-chosen iteration count and no convergence test.
 
-TPU-native: XLA's blocked Householder QR on the densified operand (one
+Device-native: XLA's blocked Householder QR on the densified operand (one
 ``jnp.linalg.qr`` call), and the eigenvalue iteration as a ``lax.fori_loop``
 so the whole loop compiles once. The reference's only QR assertion is
 residual-based (``‖A − QR‖₂ < 0.1``, sparse.rs:1380), so sign-convention
@@ -54,10 +54,10 @@ def tsqr_dense(a: jax.Array, block_rows: int = DEFAULT_TSQR_BLOCK
     """Communication-avoiding tall-skinny QR (TSQR): batched Householder
     QR over row blocks, then a log2-depth tree of (2n, n) stacked-R
     factorizations, then the Q factors multiplied back down the tree — the
-    whole pipeline is batched MXU work in one compiled program, against
+    whole pipeline is batched matmul work in one compiled program, against
     the single long Householder chain of ``jnp.linalg.qr`` (sequential in
     the row dimension). The reference's Householder deflation
-    (sparse.rs:716-756) is O(n^4)-ish scalar code; this is the TPU-shaped
+    (sparse.rs:716-756) is O(n^4)-ish scalar code; this is the batched
     algorithm for the tall operands where QR actually scales.
 
     Requires ``m >= n``; returns reduced (Q (m, n), R (n, n)). R's rows
@@ -96,11 +96,9 @@ def tsqr(a, block_rows: int = DEFAULT_TSQR_BLOCK
     return tsqr_dense(arr, block_rows)
 
 
-# TSQR routing threshold, calibrated on chip (benchmarks/tsqr_bench.py,
-# r5): XLA's blocked Householder QR is strong on this target — TSQR wins
-# only at extreme tall-skinny shapes (1.16x at 2^20 x 64) and LOSES
-# 2.4-4x at aspect ratios 4-256 with n=256. The r4 "rows >= 4*cols"
-# guess routed the losing regime through TSQR.
+# TSQR routing threshold: XLA's blocked Householder QR is taken unless the
+# operand is extremely tall-skinny. The crossover on the GPU is not
+# measured yet (PERF.md, open questions).
 TSQR_MIN_ASPECT = 4096
 
 
@@ -108,7 +106,7 @@ def qr_decomp(a: CSR) -> Tuple[CSR, CSR]:
     """QR of a CSR matrix — reference ``qr_decomp`` (sparse.rs:716-756).
     Returns (Q, R) as CSR (host re-sparsified, exact zeros dropped).
     Extreme tall-skinny operands (rows >= TSQR_MIN_ASPECT*cols — see the
-    measured crossover above) route through the blocked TSQR tree;
+    threshold above) route through the blocked TSQR tree;
     everything else uses XLA's Householder QR directly. (TSQR's main
     role is the DISTRIBUTED factorization — parallel/tsqr.py — where
     the single long Householder chain cannot shard.)"""

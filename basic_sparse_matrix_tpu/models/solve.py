@@ -23,11 +23,14 @@ from .triangular import _as_array
 def solve_dense(a: jax.Array, b: jax.Array) -> jax.Array:
     """Jittable SPD solve on dense operands: one fused factor+solve
     pipeline."""
+    from ..utils.config import factor_precision
+
     a = a.astype(jnp.float32)
     b = b.astype(jnp.float32)
-    l = jnp.linalg.cholesky(a)
-    y = jsl.solve_triangular(l, b, lower=True)
-    return jsl.solve_triangular(l, y, lower=True, trans=1)
+    with factor_precision():
+        l = jnp.linalg.cholesky(a)
+        y = jsl.solve_triangular(l, b, lower=True)
+        return jsl.solve_triangular(l, y, lower=True, trans=1)
 
 
 def solve(a: CSR, b) -> jax.Array:
@@ -52,13 +55,14 @@ class DirectSolver:
     Factorization backend, cheapest check first:
 
     1. banded block-tridiagonal scan when the (reordered) bandwidth fits a
-       small block — one shape for the whole factorization + both solves
-       (measured 29×/23× the supernodal/level-scheduled phases at n=4096);
-    2. supernodal panel phase when the pattern amalgamates into panels
-       (measured 3.9-8.1× the scatter-list phase on TPU at width ~9);
-    3. scalar scatter-list path otherwise. The supernodal dispatch uses
-       the cheap partition-only pass; the full schedule is built only when
-       it wins, and both share one chol_symbolic via the instance cache.
+       small block — one shape for the whole factorization + both solves;
+    2. supernodal panel phase when the pattern amalgamates into panels;
+       the factor stays on the device as flat CSC values and the solves
+       run panel by panel (:mod:`models.supernodal_solve`);
+    3. scalar scatter-list path otherwise, with level-set solves. The
+       supernodal dispatch uses the cheap partition-only pass; the full
+       schedule is built only when it wins, and both share one
+       chol_symbolic via the instance cache.
     """
 
     def __init__(self, a: CSR, *, reorder: bool = True):
@@ -104,18 +108,16 @@ class DirectSolver:
 
         width, _ = _sn.supernode_stats(a, relax=get_config().supernodal_relax)
         if width >= 2.0:
-            import jax as _jax
-            import numpy as _np
+            from .supernodal_solve import build_panel_solve
 
             sched = _sn.analyze_supernodal(
                 a, relax=get_config().supernodal_relax)
-            lvals = _np.asarray(_jax.device_get(
-                _sn.factorize_supernodal(sched, a.values)))
-            self._l = _sn.assemble_factor(a, lvals, sched)
+            self._lvals = _sn.factorize_supernodal(sched, a.values)
+            self._panels = build_panel_solve(sched)
             self.kind = "supernodal"
-        else:
-            self._l = cholesky_sparse(a)
-            self.kind = "scatter"
+            return
+        self._l = cholesky_sparse(a)
+        self.kind = "scatter"
         self._fwd = build_schedule(self._l, lower=True)
         self._bwd = build_schedule(self._l.transpose(), lower=False)
 
@@ -137,6 +139,11 @@ class DirectSolver:
                 x = self._banded.solve(rhs)
             else:
                 x = _bd.solve_factored_banded(self._banded, rhs)
+        elif self.kind == "supernodal":
+            from .supernodal_solve import solve_panels
+
+            y = solve_panels(self._panels, self._lvals, rhs)
+            x = solve_panels(self._panels, self._lvals, y, transpose=True)
         else:
             y = solve_triangular_sparse(self._l, rhs, self._fwd)
             x = solve_triangular_sparse(self._l, y, self._bwd, lower=False)

@@ -3,7 +3,7 @@
 Reference counterpart: ``cholesky_decomp`` (``/root/reference/src/
 sparse.rs:682-714``) — a scalar triple loop that rebuilds zero-filled factor
 rows inside the innermost k-loop; it never exploits sparsity for compute.
-The TPU rebuild splits the factorization the standard way (SURVEY.md §7
+This rebuild splits the factorization the standard way (SURVEY.md §7
 step 4):
 
 * **Symbolic phase** (native C++ runtime, ``runtime/symbolic``): elimination

@@ -1,11 +1,11 @@
 """Level-set-parallel sparse triangular solve.
 
 Reference counterpart: ``forward_substitution`` / ``backward_substitution``
-(``/root/reference/src/lib.rs:28-65``) — strictly sequential row loops. The
-TPU rebuild breaks the sequential chain with **level scheduling** (SURVEY.md
-§7 step 4): the native runtime (`runtime/symbolic.level_sets`) computes each
-row's dependency depth; rows within a level are independent and solve as one
-batched gather/scatter step. The schedule (static, host-precomputed, padded
+(the reference crate's ``src/lib.rs:28-65``) — strictly sequential row
+loops. This rebuild breaks the sequential chain with **level scheduling**
+(SURVEY.md §7 step 4): the native runtime (`runtime/symbolic.level_sets`)
+computes each row's dependency depth; rows within a level are independent
+and solve as one batched gather/scatter step. The schedule (static, host-precomputed, padded
 to per-level maxima) is closed over by a jit-compiled ``lax.fori_loop`` over
 levels.
 

@@ -6,7 +6,7 @@ walking compact CSR rows, with the diagonal assumed last (forward, lib.rs:41)
 or first (backward, lib.rs:57-60) in each row's storage. Multi-RHS is an outer
 Python loop over b's columns.
 
-TPU-native: the dense path uses XLA's blocked ``solve_triangular`` with the
+Device-native: the dense path uses XLA's blocked ``solve_triangular`` with the
 RHS columns as one batched dim (no outer loop). The sparse level-scheduled
 path (for large factors, where densifying is wasteful) lives in
 ``sparse_triangular.py`` on top of the native runtime's level-set analysis.

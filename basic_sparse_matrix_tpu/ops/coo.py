@@ -68,8 +68,8 @@ class COO:
         self._n += 1
 
     def insert_many(self, rows, cols, vals) -> None:
-        """Vectorised bulk append (no reference counterpart; the TPU-native
-        fast path for bench-scale construction)."""
+        """Vectorised bulk append (no reference counterpart; the fast path
+        for bench-scale construction)."""
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
         vals = np.asarray(vals)

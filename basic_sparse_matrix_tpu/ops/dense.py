@@ -5,7 +5,7 @@ a **column-major** ``Vec<Vec<T>>`` whose ``from_data`` outer slices are
 *columns* (dense.rs:21-29), and its const-generic stack twin ``DenseS``
 (``/root/reference/src/dense_static.rs:5-68``).
 
-On TPU a dense matrix is just a row-major ``jnp.ndarray`` — XLA owns layout.
+On the device a dense matrix is just a row-major ``jnp.ndarray`` — XLA owns layout.
 This wrapper exists purely for API/test parity: it preserves the reference's
 column-oriented construction convention so reference test fixtures port
 verbatim, while storing a plain (rows, cols) array inside. ``DenseS`` needs no

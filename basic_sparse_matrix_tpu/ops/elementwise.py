@@ -6,8 +6,7 @@ Reference counterparts:
   with static output capacity ``nnz_a + nnz_b`` (padding slots hold
   explicit zeros; ``CSR.compacted()`` restores exact-nnz storage):
   - *planned* (concrete operands): host union plan memoised per pattern
-    pair; numeric phase is two gathers + add. 5.7x the lexsort merge at
-    the reference ss_add workload on chip.
+    pair; numeric phase is two gathers + add.
   - *key-space* (traced operands, rows·cols fits an accumulator):
     scatter-add into a flat cell space + static-size nonzero extraction.
   - *lexsort* (general): concat + lexsort + sorted-run segment-sum.
@@ -40,8 +39,8 @@ def _merge(a: CSR, b: CSR, b_sign: int) -> CSR:
     # Two-key sort (row major, col minor) via lexsort: a combined
     # ``row*cols+col`` integer key overflows int32 for large shapes (x64 is
     # disabled by default in jax). A searchsorted interleave (the operands
-    # are already sorted) was measured 4x SLOWER on TPU — binary search
-    # lowers to ~21 serial gather passes vs one fused sort (PERF_NOTES.md).
+    # are already sorted) lost to this: binary search lowers to ~21 serial
+    # gather passes vs one fused sort (ARCHITECTURE.md).
     order = jnp.lexsort((cols, rows))
     rows, cols, vals = rows[order], cols[order], vals[order]
 
@@ -74,9 +73,7 @@ def _merge_keyspace(a: CSR, b: CSR, b_sign: int) -> CSR:
     device accumulator. Scatter-adds both operands into a flat
     (rows·cols) accumulator, marks the union mask, and extracts the union
     coordinates ALREADY SORTED with one static-size ``nonzero`` (a cumsum)
-    — replacing the two 2n-element sort passes of the lexsort merge.
-    Measured 21x faster at the reference ``ss_add`` workload (2×900k
-    entries in 1000×1000: 3.3 ms vs 70 ms; BENCH_RESULTS.md). Output
+    — replacing the two 2n-element sort passes of the lexsort merge. Output
     capacity is static ``nnz_a + nnz_b``; slots past the true union size
     are explicit zeros at coordinate (rows-1, cols-1), matching the
     lexsort merge's explicit-zero-padding semantics."""
@@ -154,8 +151,7 @@ class _MergePlan:
         # Inverse maps: slot k takes operand entry gather_*[k] (sentinel =
         # one-past-end → a zero appended to the value vector). Each slot has
         # at most one contribution per operand, so the numeric phase is two
-        # GATHERS + add — no scatter (XLA TPU scatter measured ~6x slower
-        # than the equivalent gather at this size).
+        # GATHERS + add — no scatter, no atomics.
         ga = np.full(n, a.stored, dtype=np.int64)
         ga[np.searchsorted(union, ka)] = np.arange(ka.shape[0])
         gb = np.full(n, b.stored, dtype=np.int64)
@@ -178,15 +174,14 @@ def _merge_planned_vals(vals_a, vals_b, plan_gathers, n: int, b_sign: int):
 
 # --- chunked numeric phase (issue-coalesced gathers) ---------------------
 #
-# The two inverse gathers above are SCALAR gathers: one issue per output
-# slot (~2·n issues). On this chip random-gather throughput is issue-bound
-# (PERF_NOTES: 2KB rows gather at the same rate as any ordering), so the
-# numeric phase is limited by issue rate, not bytes. Because each inverse
+# The two inverse gathers above are SCALAR gathers: one per output slot
+# (~2·n). Where random gathers are bound by their count rather than their
+# bytes, fewer and wider gathers win. Because each inverse
 # map is MONOTONE over its valid slots, all of an output chunk's w source
 # elements live in at most two aligned w-chunks of the operand — so TWO
 # row-gathers can serve w outputs. The within-row select uses a host-
-# precomputed local index contracted against a one-hot on device (VPU work,
-# no scalar gathers). Issue count drops from 2n to 4n/w per operand pair.
+# precomputed local index contracted against a one-hot on device (no scalar
+# gathers). Issue count drops from 2n to 4n/w per operand pair.
 
 MERGE_CHUNK_W = 32
 
@@ -303,8 +298,7 @@ def _dispatch_merge(a: CSR, b: CSR, b_sign: int) -> CSR:
                     or isinstance(b.values, jax.core.Tracer))
     if concrete and a.stored + b.stored:
         # symbolic/numeric split: one host plan per pattern pair, then two
-        # inverse gathers + add per call (7.7x the lexsort merge at the
-        # reference ss_add workload on chip)
+        # inverse gathers + add per call
         try:
             return _merge_planned(a, b, b_sign)
         except _HasDuplicateCoords:

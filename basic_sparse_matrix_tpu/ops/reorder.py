@@ -68,19 +68,19 @@ def chol_fill(a: CSR, perm: np.ndarray = None) -> int:
     return int(l_indptr[-1])
 
 
-# Measured on chip (BENCH_RESULTS.md r2, n=4096 Laplacian): RCM's regular
-# band shapes beat ND on DEVICE TIME for both the supernodal numeric phase
-# (25.8 vs 45.8 ms) and the triangular solves (17 vs 82 ms) even at 1.5x
-# the fill — predicted nnz is a memory proxy, not a time proxy. ND is
-# chosen only when its fill advantage is large enough to flip that
-# (asymptotically guaranteed: O(n log n) vs O(n^1.5) on 2D meshes).
+# RCM's regular band shapes compile to few scanned groups and feed the
+# banded tier, so RCM is preferred even at somewhat higher predicted fill
+# — predicted nnz is a memory proxy, not a time proxy. ND is chosen only
+# when its fill advantage is large (asymptotically guaranteed:
+# O(n log n) vs O(n^1.5) on 2D meshes). The factor was set on a TPU; on
+# the GPU it is not measured yet (PERF.md, open questions).
 ND_FILL_FACTOR = 0.45
 
 
 def best_permutation(a: CSR):
     """Ordering auto-choice by predicted factor fill (cheap native symbolic
     passes), device-time-biased: RCM wins ties and moderate fill gaps (its
-    regular level shapes run faster on chip — see ND_FILL_FACTOR note); ND
+    regular level shapes — see the ND_FILL_FACTOR note); ND
     wins when its fill is < ``ND_FILL_FACTOR``× RCM's; natural order wins
     only if it beats both outright. Returns ``(perm, name)`` with
     ``(None, 'natural')`` for the given order."""

@@ -6,12 +6,12 @@ product over the *entire dense output space*, O(m·n·nnz/row). The reference
 README lists sparse×sparse as an open TODO (README.md:23) yet ships and
 benches this implementation.
 
-TPU-native strategy: SpGEMM output sparsity is data-dependent, which fights
+Strategy: SpGEMM output sparsity is data-dependent, which fights
 XLA's static-shape model. We provide:
 
 * :func:`spgemm_dense` — jittable: gather rows of B^dense by A's column
   indices and segment-sum (i.e. SpMM against the densified RHS). At reference
-  bench scale (1000×1000) this rides the gather/segment path or MXU and is
+  bench scale (1000×1000) this rides the gather/segment path and is
   orders of magnitude faster than merge loops.
 * :func:`spgemm` — host wrapper returning a CSR with exact zeros dropped,
   matching the reference's ``val != default`` skip (sparse.rs:628-630).
@@ -61,7 +61,7 @@ EXPANSION_BUDGET = 1 << 27     # entries the bounded path may expand to
 def spgemm(a: CSR, b: CSR) -> CSR:
     """Sparse × sparse → CSR — reference ``mul_sparse`` (sparse.rs:601-635).
 
-    Dispatch: masked-dense (MXU matmul over the densified RHS) while the
+    Dispatch: masked-dense (SpMM against the densified RHS) while the
     dense intermediates fit the budget — the fastest formulation at
     reference scale — else the planned true-sparse Gustavson path
     (:func:`spgemm_planned`), whose expansion is sized by the actual
@@ -213,9 +213,8 @@ class _SpgemmPlan:
         nnz_c = pattern.shape[0]
         # Reorder the contribution lists by destination slot (host, once):
         # the numeric phase then reduces with a SORTED segment-sum instead
-        # of a random scatter-add (XLA TPU scatter measured ~6x slower
-        # than the equivalent gather; sorted segment ids lower to a fast
-        # one-pass reduction).
+        # of a random scatter-add (sorted segment ids lower to a one-pass
+        # reduction without atomics).
         order = np.argsort(dst, kind="stable")
         # Issue-coalesced numeric maps (config spgemm_numeric="chunked"):
         # built from the EXPANSION-order structure before it is discarded.
@@ -383,7 +382,7 @@ class _SpgemmMergeTreePlan:
     ``ceil(log2(max nnz per A row))`` rounds of pairwise sorted-stream
     merging — each round a global application of the planned-merge chunk
     kernel (4 aligned row gathers + one-hot select per side, the ss_add
-    formulation measured 48x scipy). Each A entry's contribution run is
+    formulation). Each A entry's contribution run is
     one sorted stream; round r merges stream pairs within each output row,
     summing duplicate columns, until one stream per row remains — which IS
     the row's C values in pattern order. Scalar issues drop from ~2E (two
@@ -548,8 +547,8 @@ def _spgemm_coalesced_vals(vals_a, vals_b, coal_maps, dst, nnz_c: int,
                            w: int):
     """Issue-coalesced numeric phase (see _SpgemmPlan._try_coalesce): the
     expansion product is computed in SOURCE order from 4 aligned row
-    gathers per chunk + a one-hot select (fused by XLA into the gathers,
-    as measured for the merge kernel), then one permutation gather brings
+    gathers per chunk + a one-hot select (fused by XLA into the gathers),
+    then one permutation gather brings
     it to destination order for the sorted segment-sum."""
     c1, c2, e1, e2, boundary, local, perm = coal_maps
     dtype = jnp.result_type(vals_a, vals_b)
@@ -585,11 +584,11 @@ def _plan_numeric(plan: "_SpgemmPlan", vals_a, vals_b):
             return _spgemm_mergetree_vals(vals_a, vals_b, maps, mt.sizes,
                                           plan.nnz_c, mt.w)
     numeric = get_config().spgemm_numeric
-    # "auto": rowgather only in its measured winning regime — UNIFORM B
+    # "auto": rowgather only in its winning regime — UNIFORM B
     # rows, where the B-ELL view is a free reshape and the issue count is
     # ~E + nnz_a. With ragged B the ELL build is an E-sized element
-    # gather and rowgather measured 0.78x of planned (BENCH_RESULTS r5),
-    # so auto stays on planned there.
+    # gather and rowgather loses to planned, so auto stays on planned
+    # there.
     use_rowg = plan.rowg is not None and (
         numeric == "rowgather"
         or (numeric == "auto" and plan.rowg["uniform"]))

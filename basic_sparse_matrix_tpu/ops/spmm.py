@@ -4,13 +4,12 @@ Reference counterparts: ``mul_dense`` / ``mul_dense_s`` (``/root/reference/
 src/sparse.rs:426-466``) and ``mul_vector`` (sparse.rs:468-482). The reference
 runs a scalar triple loop and — an API quirk — stores the *dense* product back
 into a CSR, dropping exact zeros (pinned by its ``test_nnz``,
-sparse.rs:1154-1178). A TPU SpMM produces a dense output array; use
+sparse.rs:1154-1178). SpMM here produces a dense output array; use
 :func:`spmm_to_csr` for the reference-shaped result.
 
 Execution paths (``spmm_auto`` dispatches by density/structure):
-* dense MXU matmul over the memoised densified operand (≥ ~5% density)
-* ``spmm_bsr`` (ops/pallas/spmm_kernel.py) — block-sparse MXU kernel (mid
-  density on TPU)
+* dense matmul over the memoised densified operand (at or above
+  ``config.dense_dispatch_density``)
 * ``spmm_ell`` (ops/ell.py) — padded-row gather+reduce, no scatter (low
   row-length variance)
 * ``spmm`` — gather/segment-sum baseline: pure XLA, any shape; the test
@@ -75,25 +74,19 @@ def spmm_to_csr(a: CSR, b) -> CSR:
     return CSR.from_dense(jax.device_get(mul_dense(a, b)))
 
 
-
-
 def spmm_auto(a: CSR, b: jax.Array) -> jax.Array:
-    """Density-dispatched SpMM — algorithm selection is the TPU-correct
-    move, exactly like cuSPARSE/cuBLAS switching:
+    """Density-dispatched SpMM, the ladder a cuSPARSE/cuBLAS user would
+    pick by hand:
 
-    * **dense path** (density ≥ ~5%, densified A fits memory): one MXU
-      matmul against the cached densified operand. At reference-bench
-      densities the MXU is so much faster than any gather formulation that
-      sparsity only costs; the densify happens once per matrix
-      (memoised), mirroring the reference bench which also keeps
-      construction outside the timed region.
-    * **BSR kernel** (mid density on real TPU): block-sparse Pallas MXU
-      kernel, skipping empty blocks.
-    * **gather/segment** (hypersparse, CPU, or traced operands): the
-      general fallback.
+    * **dense** (density ≥ ``config.dense_dispatch_density`` and the
+      densified A fits ``dense_dispatch_max_bytes``): one matmul against
+      the memoised densified operand; the densify happens once per matrix.
+    * **ELL** (padding overhead ≤ ``config.ell_max_overhead``): padded-row
+      gather+FMA, no scatter.
+    * **gather/segment** (skewed rows or traced operands): the general
+      fallback.
     """
-    from ..utils.config import get_config
-    from .pallas import spmm_kernel as _k
+    from ..utils.config import get_config, matmul_precision
 
     cfg = get_config()
     concrete = not isinstance(a.values, jax.core.Tracer)
@@ -106,16 +99,11 @@ def spmm_auto(a: CSR, b: jax.Array) -> jax.Array:
         if dense is None:
             dense = a.todense().astype(jnp.float32)
             object.__setattr__(a, "_dense_cache", dense)
-        from ..utils.config import matmul_precision
-
         return jnp.dot(dense, b.astype(dense.dtype),
                        precision=matmul_precision())
-    if _k.bsr_profitable(a, b.shape[-1]):
-        return _k.spmm_bsr_from_csr(a, b)
     if concrete and a.stored:
         from . import ell as _e
 
         if _e.ell_overhead(a) <= cfg.ell_max_overhead:
-            # padded-row gather+reduce: no scatter, ~4x the segment path
             return _e.spmm_ell_from_csr(a, b)
     return spmm(a, b)

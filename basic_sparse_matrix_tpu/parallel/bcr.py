@@ -5,7 +5,7 @@ This distributes :mod:`models.bcr` over a 1D device mesh: blocks are
 row-sharded contiguously, and each reduction level is embarrassingly
 parallel except for ONE boundary block per device — the previous device's
 last odd-block state — exchanged with a single ``ppermute`` per level
-(rides ICI, overlapped by XLA with the batched block algebra). After
+(overlapped by XLA with the batched block algebra). After
 log2(m/ndev) local levels each device holds one block; the remaining
 log2(ndev) levels run redundantly on every device from an ``all_gather``
 of the ndev survivor blocks (tiny: ndev·nb² floats), avoiding a deep

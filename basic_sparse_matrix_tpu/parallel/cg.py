@@ -2,8 +2,8 @@
 counterpart to the reference's direct Cholesky ``solve`` (lib.rs:11-24).
 
 The whole iteration runs inside one ``shard_map``: each device applies its
-row block of A to the (replicated) search direction, an ``all_gather`` over
-ICI re-assembles the matvec, and scalars (dot products) are computed
+row block of A to the (replicated) search direction, an ``all_gather``
+re-assembles the matvec, and scalars (dot products) are computed
 redundantly on every device from replicated vectors — no psum needed. One jit
 compilation covers the full ``lax.fori_loop``; this is the "training step" of
 the multichip dry run (``__graft_entry__.dryrun_multichip``).

@@ -6,8 +6,8 @@ on. Chebyshev's scalars are data-independent (fixed recurrence from the
 spectral bounds, see ``models/chebyshev.py``), so here everything stays
 **row-sharded end to end**: x, r, d live as per-device blocks, the only
 collective per iteration is the matvec's tiled ``all_gather`` of d — no
-psum, no replication of state. Per-iteration comm = one length-n vector on
-ICI; per-device memory O(n/ndev). The spectral bounds come from the
+psum, no replication of state. Per-iteration comm = one length-n vector;
+per-device memory O(n/ndev). The spectral bounds come from the
 distributed Lanczos (``parallel/lanczos.py``), so the whole pipeline never
 assembles the matrix or any full-length state beyond the gathered operand.
 """

@@ -4,7 +4,7 @@ The mesh-scale counterpart of ``models/lanczos.py`` (which itself serves
 the regime the reference's dense QR iteration, ``/root/reference/src/
 sparse.rs:758-774``, cannot reach). A row-sharded SPD matrix too large for
 one chip still yields its extremal spectrum: per step ONE local SpMV +
-``all_gather`` over ICI (identical comm pattern to ``parallel/cg.py``),
+``all_gather`` (identical comm pattern to ``parallel/cg.py``),
 while the Krylov basis is **row-sharded** — each device stores only
 ``(k, rows/ndev)`` — and full reorthogonalisation runs as local
 ``(k, rps)`` matmuls with one ``psum`` of the k Gram-Schmidt coefficients.
@@ -12,7 +12,7 @@ Per-step comm: one tiled all_gather of a length-n vector + two psums of a
 length-k vector; per-device memory O(k·n/ndev).
 
 The whole k-step build is one ``lax.scan`` inside one ``shard_map`` —
-a single compiled program, collectives riding ICI.
+a single compiled program.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 No reference counterpart — the reference crate is single-threaded,
 single-process (SURVEY.md §2, "Parallelism inventory: none"). This layer is
 specified by BASELINE.json's north star: CSR matrices row-partitioned across
-chips/hosts, dense RHS panels exchanged over ICI with XLA collectives.
+devices/hosts, dense RHS panels exchanged with XLA collectives.
 
 Axis conventions used throughout ``parallel/``:
 * ``"rows"`` — partitions matrix rows (the sparse analogue of tensor/sequence
@@ -32,7 +32,7 @@ def make_mesh(
     """Build a mesh over the available devices.
 
     With no ``shape``, uses a 1D row mesh over every device. 2D shapes lay
-    ``rows`` along the first (slow, typically intra-host ICI-contiguous) axis.
+    ``rows`` along the first axis.
     """
     devices = list(devices if devices is not None else jax.devices())
     if shape is None:

@@ -1,7 +1,7 @@
 """Multi-host runtime (component D5).
 
 No reference counterpart (single-process crate). This module wires the
-framework to multi-host TPU slices the JAX way: ``jax.distributed.initialize``
+framework to multi-host clusters the JAX way: ``jax.distributed.initialize``
 for process bootstrap, per-host row-block construction so each host builds
 only its slice of a giant CSR, a global mesh spanning all hosts, and
 ``jax.make_array_from_single_device_arrays`` assembly so no host ever

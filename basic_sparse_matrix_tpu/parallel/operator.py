@@ -32,6 +32,7 @@ class DistributedOperator:
         self.rows, self.cols = a.rows, a.cols
         self.sa: ShardedCSR = put_sharded(
             shard_csr(a, mesh.shape[ROWS]), mesh)
+        self._ell = None           # row-sharded ELL view (lazy)
         self._lfac = None          # block-Jacobi factors (lazy)
         self._bounds = None        # Chebyshev spectral bounds (lazy)
         self._spgemm_plans = []    # (weakref(rhs), plans) — last 4 kept
@@ -44,9 +45,21 @@ class DistributedOperator:
         return unshard_rows(y, self.rows)
 
     def matmul(self, b) -> jax.Array:
-        from .spmm import spmm_sharded
+        """Row-sharded SpMM, replicated ``b``: over ELL shards (gather+FMA)
+        when the padding stays under ``config.ell_max_overhead``, else the
+        gather/segment-sum shards."""
+        from ..ops.ell import ell_overhead
+        from ..utils.config import get_config
+        from .spmm import shard_ell, spmm_sharded, spmm_sharded_ell
 
-        y = spmm_sharded(self.sa, jnp.asarray(b, jnp.float32), self.mesh)
+        b = jnp.asarray(b, jnp.float32)
+        if self._ell is None and self.a.stored and (
+                ell_overhead(self.a) <= get_config().ell_max_overhead):
+            self._ell = shard_ell(self.a, self.mesh)
+        if self._ell is not None:
+            y = spmm_sharded_ell(self._ell, b, self.mesh)
+        else:
+            y = spmm_sharded(self.sa, b, self.mesh)
         return unshard_rows(y, self.rows)
 
     def matmul_sparse(self, other: CSR) -> CSR:

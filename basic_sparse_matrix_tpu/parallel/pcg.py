@@ -5,7 +5,7 @@ The single-chip iterative solver pairs CG with an IC(0) preconditioner
 (``models/pcg.py``); its distributed analogue here uses the classic
 communication-free preconditioner for row-partitioned matrices —
 **block-Jacobi**: every device factors its own diagonal block ``A_ss``
-(dense Cholesky on the MXU, built once) and applies two local triangular
+(dense Cholesky, built once) and applies two local triangular
 solves per iteration. The preconditioner application needs *zero*
 collectives; the only communication per CG step stays the one
 ``all_gather`` of the matvec, so the iteration profile is identical to
@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
+from ..utils.config import factor_precision
 from .mesh import ROWS
 from .sharded import ShardedCSR
 from .spmm import _local_row_ids, _local_spmv
@@ -55,7 +56,8 @@ def build_block_jacobi(sa: ShardedCSR, mesh) -> jax.Array:
 
     def body(indptr, indices, values):
         block = _local_diag_block(sa, indptr[0], indices[0], values[0])
-        return jnp.linalg.cholesky(block)[None]
+        with factor_precision():
+            return jnp.linalg.cholesky(block)[None]
 
     f = jax.shard_map(
         body, mesh=mesh,
@@ -94,9 +96,11 @@ def pcg_solve_sharded(
 
         def apply_m_inv(r):
             r_local = jax.lax.dynamic_slice_in_dim(r, me * rps, rps)
-            y = jax.scipy.linalg.solve_triangular(l, r_local, lower=True)
-            z_local = jax.scipy.linalg.solve_triangular(
-                l.T, y, lower=False)
+            with factor_precision():
+                y = jax.scipy.linalg.solve_triangular(l, r_local,
+                                                      lower=True)
+                z_local = jax.scipy.linalg.solve_triangular(
+                    l, y, lower=True, trans=1)
             return jax.lax.all_gather(z_local, ROWS, tiled=True)
 
         var = lambda v: jax.lax.pcast(v, ROWS, to="varying")

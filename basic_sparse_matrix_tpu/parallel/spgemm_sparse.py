@@ -1,7 +1,7 @@
 """Distributed sparse×sparse multiply (SpGEMM) over the row mesh.
 
 Scales the reference's ``mul_sparse`` (`/root/reference/src/sparse.rs:601-635`,
-a sequential per-output-cell merge) the TPU way: C = A·B row-partitions A, so
+a sequential per-output-cell merge) across devices: C = A·B row-partitions A, so
 each device owns an independent Gustavson product ``C_s = A_s · B``. The
 symbolic phase (exact output pattern + gather maps) runs per row block on the
 host — embarrassingly parallel, one plan per shard, memoised by the caller by

@@ -1,13 +1,15 @@
 """Distributed SpMM / SpMV over a device mesh (components D2 of SURVEY.md §2).
 
-Three collective strategies, all built on ``jax.shard_map`` so the XLA TPU
-compiler schedules the collectives over ICI and overlaps them with per-block
-compute:
+Collective strategies, all built on ``jax.shard_map`` so XLA schedules the
+collectives (NCCL on GPUs) and overlaps them with per-block compute:
 
 * :func:`spmv_sharded` / :func:`spmm_sharded` — A row-sharded, operand
   replicated: zero communication; output row-sharded. The baseline layout.
+  :func:`spmm_sharded_ell` is the same layout over ELL shards (gather+FMA,
+  no scatter), the path ``DistributedOperator.matmul`` takes for rows of
+  bounded length.
 * :func:`spmm_allgather` — A row-sharded, B row-(K-)sharded: one
-  ``all_gather`` of B's row panels over ICI, then local SpMM.
+  ``all_gather`` of B's row panels, then local SpMM.
 * :func:`spmm_ring` — A row-sharded, B K-sharded: a ``ppermute`` ring rotates
   B's panels neighbour-to-neighbour; each step multiplies the local column
   block against the panel in flight. Peak memory stays at one panel per
@@ -89,7 +91,7 @@ def _pad_k(b: jax.Array, num_shards: int) -> jax.Array:
 
 def spmm_allgather(sa: ShardedCSR, b: jax.Array, mesh) -> jax.Array:
     """B stored K-sharded; one tiled all-gather re-assembles the panels on
-    each device, then local SpMM. Bandwidth-optimal on ICI for moderate K."""
+    each device, then local SpMM."""
     num = sa.num_shards
     b_padded = _pad_k(b, num)
 
@@ -145,7 +147,7 @@ def spmm_ring(sa: ShardedCSR, b: jax.Array, mesh) -> jax.Array:
                 contrib, row_ids, num_segments=rps, indices_are_sorted=True
             )
             # Rotate the panel to the left neighbour for the next step; XLA
-            # overlaps this ICI transfer with the next step's compute.
+            # overlaps this transfer with the next step's compute.
             b_buf = jax.lax.ppermute(b_buf, ROWS, perm)
             return acc, b_buf
 
@@ -163,24 +165,41 @@ def spmm_ring(sa: ShardedCSR, b: jax.Array, mesh) -> jax.Array:
     )
 
 
+def shard_ell(a, mesh):
+    """Host CSR → ELL with rows padded to the mesh and each row block put
+    straight onto its device (never staged whole on one device)."""
+    from jax.sharding import NamedSharding
+
+    from ..ops.ell import ELL, ell_host_arrays
+
+    cols, vals = ell_host_arrays(a, pad_rows_to=mesh.shape[ROWS])
+    spec = NamedSharding(mesh, P(ROWS))
+    return ELL(cols=jax.device_put(cols, spec),
+               vals=jax.device_put(vals, spec), n_cols=a.cols)
+
+
 def spmm_sharded_ell(ell, b: jax.Array, mesh) -> jax.Array:
     """Row-sharded SpMM over an ELL operand with replicated RHS — the
-    gather/reduce formulation (no scatter) distributed by simply sharding
-    the rectangular (rows, width) arrays over the ``rows`` axis. Returns the
-    row-sharded product of shape (padded rows, n_rhs)."""
+    gather/reduce formulation (no scatter) distributed by sharding the
+    rectangular (rows, width) arrays over the ``rows`` axis; each device
+    runs the single-device :func:`ops.ell.spmm_ell` on its block. Returns
+    the row-sharded product of shape (padded rows, n_rhs)."""
+    from ..ops.ell import ELL, spmm_ell
+
     num = mesh.shape[ROWS]
     rows = ell.cols.shape[0]
     pad = (-rows) % num
-    cols = jnp.pad(ell.cols, ((0, pad), (0, 0)))
-    vals = jnp.pad(ell.vals, ((0, pad), (0, 0)))
+    cols = jnp.pad(ell.cols, ((0, pad), (0, 0))) if pad else ell.cols
+    vals = jnp.pad(ell.vals, ((0, pad), (0, 0))) if pad else ell.vals
 
     def body(c, v, b):
-        return jnp.einsum("rp,rpn->rn", v.astype(b.dtype), b[c],
-                          precision=jax.lax.Precision.HIGHEST)
+        return spmm_ell(ELL(cols=c, vals=v, n_cols=ell.n_cols), b)
 
+    # check_vma=False: on the GPU the body is a Pallas kernel, whose output
+    # shape carries no record of the mesh axes its inputs vary over.
     f = jax.shard_map(
         body, mesh=mesh,
         in_specs=(P(ROWS), P(ROWS), P()),
-        out_specs=P(ROWS),
+        out_specs=P(ROWS), check_vma=False,
     )
     return jax.jit(f)(cols, vals, b)

@@ -1,6 +1,6 @@
 """2D-mesh SpMM: rows of A over the ``"rows"`` axis, RHS columns over the
 ``"cols"`` axis (multi-RHS data parallelism), with the K panels ring-rotated
-over ICI like :func:`parallel.spmm.spmm_ring`.
+like :func:`parallel.spmm.spmm_ring`.
 
 This is the full sharding story for the flagship op: tensor parallelism over
 matrix rows × data parallelism over RHS columns × ring-pipelined K panels.

@@ -5,11 +5,11 @@ same way as the scalar scatter-list one (:mod:`parallel.cholesky`): within a
 fan-in level, both the panel-update batch and the panel finalisations are
 independent, so each device takes a slice of the level's update list and of
 its panel list, and one ``psum`` per phase merges the disjoint
-contributions. The per-update work here is a dense outer product (MXU) —
+contributions. The per-update work here is a dense outer product —
 this is the "fan-out elimination-tree schedule with column-panel broadcasts"
 of BASELINE.json's north star, with the broadcast realised as the
 psum-replicated factor value array. Tables are the COMPACT per-update
-vectors (models.supernodal r3); full position arrays are rebuilt
+vectors (as in models.supernodal); full position arrays are rebuilt
 in-register on each device.
 """
 
@@ -28,6 +28,7 @@ from ..models.supernodal import (
     assemble_factor,
 )
 from ..ops.csr import CSR
+from ..utils.config import factor_precision
 from .mesh import ROWS
 
 
@@ -93,11 +94,12 @@ def factorize_supernodal_sharded(sched: SupernodalSchedule, a_values,
         T = lvals[tp]
         eye = jnp.eye(T.shape[-1], dtype=T.dtype)
         Tsym = T + jnp.where(tv[:, :, None] & tv[:, None, :], 0.0, eye)
-        Lt = jnp.linalg.cholesky(
-            Tsym + jnp.triu(jnp.swapaxes(Tsym, 1, 2), 1))
         Bp = lvals[bp]
-        Bn = jax.scipy.linalg.solve_triangular(
-            Lt, jnp.swapaxes(Bp, 1, 2), lower=True)
+        with factor_precision():
+            Lt = jnp.linalg.cholesky(
+                Tsym + jnp.triu(jnp.swapaxes(Tsym, 1, 2), 1))
+            Bn = jax.scipy.linalg.solve_triangular(
+                Lt, jnp.swapaxes(Bp, 1, 2), lower=True)
         Bn = jnp.swapaxes(Bn, 1, 2)
         newT = jnp.where(jnp.isfinite(Lt), jnp.tril(Lt), 0.0)
         fix = jnp.zeros_like(lvals).at[tp].add(newT - T)

@@ -5,7 +5,7 @@ No reference counterpart at this scale — the reference's ``qr_decomp``
 Householder deflation loop. This is the CAQR factorization shaped for a
 device mesh: each device runs one local blocked QR over its row shard
 (:func:`models.qr.tsqr_dense` semantics), the tiny (n, n) R factors ride
-ONE ``all_gather`` over ICI, every device redundantly factors the stacked
+ONE ``all_gather``, every device redundantly factors the stacked
 (num·n, n) matrix (deterministic — replicated R), and the local Q is
 corrected by the device's slice of the tree Q. Communication volume is
 ``num · n²`` floats total, independent of m.

@@ -1,12 +1,12 @@
-// Native host-side symbolic sparse analysis for the TPU framework.
+// Native host-side symbolic sparse analysis for the sparse framework.
 //
 // The reference crate implements its whole runtime in native (Rust) code;
-// per the build contract the TPU framework's host runtime is native C++.
+// this framework's host runtime is native C++.
 // These routines are the sequential, pointer-chasing graph algorithms that
 // XLA is the wrong tool for: COO->CSR conversion, elimination trees,
 // symbolic Cholesky fill, and level-set extraction for parallel triangular
-// solves. The numeric phases run on TPU; these produce the static schedules
-// they consume.
+// solves. The numeric phases run on the device; these produce the static
+// schedules they consume.
 //
 // Exported with C linkage for ctypes. All index arrays are int64 (matching
 // numpy's default on the host side); all functions are single-threaded and

@@ -2,8 +2,9 @@
 
 The reference's only observability is criterion wall-time benches and stray
 ``println!``s (SURVEY.md §5). Here: structured per-op metrics (nnz/s,
-GFLOP/s, bytes moved), a roofline calculator against per-chip peaks, timer
-contexts, and ``jax.profiler`` trace hooks.
+GFLOP/s, bytes moved), a roofline calculator against the device's published
+peaks (one table, keyed by ``device_kind``), timer contexts, and
+``jax.profiler`` trace hooks.
 """
 
 from __future__ import annotations
@@ -20,28 +21,39 @@ logger = logging.getLogger("basic_sparse_matrix_tpu")
 
 @dataclasses.dataclass(frozen=True)
 class ChipSpec:
-    """Per-chip peak numbers used as roofline denominators."""
+    """Published peak rates of one device, the roofline denominators."""
 
     name: str
-    hbm_bw: float       # bytes/s
-    mxu_f32: float      # FLOP/s (f32-accurate matmul)
-    mxu_bf16: float     # FLOP/s
+    hbm_bw: float       # device-memory bytes/s
+    tf32: float         # FLOP/s, dense tensor-core TF32
+    f32: float          # FLOP/s, float32 outside the tensor cores
+    source: str
 
 
-# v5e-class defaults (single chip).
-V5E = ChipSpec(name="tpu-v5e", hbm_bw=819e9, mxu_f32=4.9e13,
-               mxu_bf16=1.97e14)
+# One entry per device_kind the program has run on. A device that is not
+# here is an error, never a default: its numbers would be invented.
+PEAKS: Dict[str, ChipSpec] = {
+    "NVIDIA H100 80GB HBM3": ChipSpec(
+        name="NVIDIA H100 80GB HBM3", hbm_bw=3.35e12, tf32=4.95e14,
+        f32=6.7e13,
+        source="NVIDIA H100 Tensor Core GPU data sheet, SXM5 column "
+               "(dense rates, 700 W)"),
+}
 
 
-def detect_chip() -> ChipSpec:
-    try:
+def peak_spec(device_kind: Optional[str] = None) -> ChipSpec:
+    """Peak table lookup by ``device_kind`` (default: the first JAX
+    device's). Raises ``KeyError`` for a device with no entry."""
+    if device_kind is None:
         import jax
 
-        if jax.default_backend() == "tpu":
-            return V5E
-    except Exception:
-        pass
-    return ChipSpec(name="cpu", hbm_bw=100e9, mxu_f32=1e12, mxu_bf16=2e12)
+        device_kind = jax.devices()[0].device_kind
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no peak rates for device_kind {device_kind!r}; add its data "
+            f"sheet numbers to runtime.profiling.PEAKS") from None
 
 
 @dataclasses.dataclass
@@ -60,20 +72,18 @@ class OpMetrics:
     def nnz_per_s(self) -> float:
         return self.nnz / self.seconds if self.seconds else 0.0
 
-    def roofline_fraction(self, chip: Optional[ChipSpec] = None) -> float:
+    def roofline_fraction(self, chip: ChipSpec) -> float:
         """Achieved fraction of speed-of-light = t_bound / t_measured with
-        t_bound = max(memory time, compute time)."""
-        chip = chip or detect_chip()
+        t_bound = max(memory time, float32 compute time)."""
         t_mem = self.bytes_moved / chip.hbm_bw
-        t_mxu = self.flops / chip.mxu_f32
-        t_bound = max(t_mem, t_mxu)
+        t_flop = self.flops / chip.f32
+        t_bound = max(t_mem, t_flop)
         return t_bound / self.seconds if self.seconds else 0.0
 
     def to_json(self) -> str:
         d = dataclasses.asdict(self)
         d["gflops_per_s"] = self.gflops_per_s
         d["nnz_per_s"] = self.nnz_per_s
-        d["roofline_fraction"] = self.roofline_fraction()
         return json.dumps(d)
 
 

@@ -1,4 +1,5 @@
 from .errors import (
+    ConfigError,
     IncorrectDimensions,
     MatErr,
     MatrixFinalised,
@@ -11,6 +12,7 @@ from .errors import (
 from .shapes import DimLike, MatDim
 
 __all__ = [
+    "ConfigError",
     "MatDim",
     "DimLike",
     "MatErr",

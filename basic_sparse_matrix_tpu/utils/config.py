@@ -14,33 +14,34 @@ import dataclasses
 import os
 from typing import Optional, Tuple
 
+from .errors import ConfigError
+
+
+# Values accepted by the choice fields; anything else raises ConfigError.
+CHOICES = {
+    "supernodal_gather": ("auto", "element", "window"),
+    "supernodal_scatter": ("auto", "element", "delta"),
+    "ordering": ("auto", "rcm", "nd", "natural"),
+    "banded_solver": ("bcr", "scan"),
+    "merge_numeric": ("chunked", "planned"),
+    "spgemm_numeric": ("planned", "chunked", "mergetree", "rowgather",
+                       "auto"),
+    "matmul_precision": ("default", "high", "highest"),
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    # Pallas BSR kernel tiles (f32 MXU alignment: 8 sublanes × 128 lanes).
-    bsr_block_rows: int = 8
-    bsr_block_cols: int = 128
-    rhs_tile: int = 128
-    # Dispatch thresholds (measured: benchmarks/autotune.py on v5e, r2:
-    # dense matmul wins from 0.5% density wherever the bytes guard admits
-    # it; the unrolled ELL path beats gather/segment up to 4x padding).
-    bsr_min_fill: float = 0.02      # block fill below which gather path wins
-    dense_dispatch_density: float = 0.005  # densify-SpMM threshold
+    # SpMM density ladder (ops.spmm.spmm_auto): dense matmul at or above
+    # this density while the densified operand stays under the bytes
+    # guard; the ELL gather+FMA path below it up to ell_max_overhead
+    # padding; the gather/segment path otherwise.
+    dense_dispatch_density: float = 0.005
     dense_dispatch_max_bytes: int = 2 << 30
     ell_max_overhead: float = 4.0   # padded-slots/true-nnz cap for ELL
     # Opt-in: gather RHS rows in bfloat16 (f32 accumulate) on the barriered
-    # hypersparse path — +23% measured at 1M×32×512, B-quantisation cost.
+    # hypersparse path — halves gather bytes at a B-quantisation cost.
     ell_gather_bf16: int = 0
-    # VMEM-streaming SpMM kernel (ops.pallas.stream_kernel) for concrete
-    # hypersparse operands with wide RHS on real TPUs: "on" | "off".
-    # On-chip head-to-head r3 (benchmarks/stream_spmm_bench.py, 100k rows
-    # x 32/row x 512 RHS): 26.1 ms vs 34.0 ms ELL gather path (1.30x,
-    # roofline fraction 0.243 -> 0.32). The gain is bounded by the
-    # per-entry VMEM row FMA issue cost at 512 lanes (~4 vregs/row), not
-    # by HBM: unroll saturates at 8 (u1 44 ms, u4 30.5, u8 26.1, u16
-    # 25.8); a 4096-row C tile OOMs the 16 MB VMEM at 512-col RHS.
-    ell_stream: str = "on"
-    ell_stream_unroll: int = 8
     dense_cholesky_max_n: int = 2048
     dense_cholesky_min_density: float = 0.05
     supernodal_relax: int = 8       # per-panel padding budget (amalgamation)
@@ -51,73 +52,65 @@ class Config:
     # one program.
     supernodal_groups_per_program: int = 48
     # Supernodal numeric READS: "element" (positions rebuilt in-register,
-    # one scalar gather per element), "window" (one dynamic-slice issue
-    # per contiguous base+rank run — U·W instead of U·(I+J)·W issues), or
-    # "auto" (host picks per level: window when I+J >= 144, the measured
-    # break-even between the ~0.8 us window issue and ~6 ns element
-    # gathers). Measured r4 at n=35937 (BENCH_RESULTS): window/auto
-    # numeric 3.26 s vs 6.24 s r3 element baseline; element additionally
-    # cannot compile 48-group programs at this scale (per-element
-    # position rebuilds OOM the compile helper), window/auto can.
-    # element | window | kernel | auto. "kernel" (r5) reads runs from a
-    # VMEM-resident factor array (ops/pallas/runs_read) — auto uses it
-    # whenever the schedule built classes for it (lvals fits VMEM).
+    # one gather per element), "window" (one dynamic-slice per contiguous
+    # base+rank run — U·W reads instead of U·(I+J)·W), or "auto" (host
+    # picks per level by run length; see models/supernodal).
     supernodal_gather: str = "auto"
     # Supernodal update SCATTER: "element" (per-element positions rebuilt
-    # in-register — U·I·J scatter issues at ~10 ns each), "delta" (embed
-    # updates into their target panels' dense trapezoid rects via one-hot
-    # MXU matmuls, merge per target, ONE affine rect scatter — St·Rd·Wt
-    # issues), "pallas" (per-column DMA add-back), "vmem" (whole factor
-    # array VMEM-resident, per-column roll+add — r5,
-    # ops/pallas/addback_resident), or "auto" (host picks per level by a
-    # cost model; see models/supernodal). Gate on chip with
-    # benchmarks/level_step_probe.py before changing the default.
+    # in-register — U·I·J scattered elements), "delta" (embed updates into
+    # their target panels' dense trapezoid rects via one-hot matmuls,
+    # merge per target, ONE affine rect scatter — St·Rd·Wt elements), or
+    # "auto" (host picks per level by element count; see
+    # models/supernodal).
     supernodal_scatter: str = "auto"
     ordering: str = "auto"          # fill ordering: auto|rcm|nd|natural
     # Banded (block-tridiagonal) factorization dispatch: used when the
     # (reordered) half-bandwidth fits a block size <= banded_max_block and
     # the dense band storage stays under banded_max_bytes. 0 disables.
-    # Measured on chip (BENCH_RESULTS r2): even nb=1024 blocks factor n=16k
-    # in 8.5 ms — far below the supernodal path at equal n — so the cap is
-    # set by the storage guard in practice, not by block-size economics.
-    # Raised 1024 → 2048 in r3: band storage O(n·nb) + batched potrf of
-    # nb² blocks stay MXU-friendly, and the bytes guard (not block-size
-    # economics) remains the binding constraint; this extends the banded/
-    # BCR tier to regular 3D patterns at n ≥ 32k (bandwidth ~n^(2/3)).
+    # The bytes guard, not block-size economics, is the binding
+    # constraint; 2048 extends the banded/BCR tier to regular 3D patterns
+    # at n >= 32k (bandwidth ~n^(2/3)).
     banded_max_block: int = 2048
     banded_max_bytes: int = 1 << 30
     banded_min_steps: int = 4       # need >= this many block rows to pay off
     # Banded backend: "bcr" (block cyclic reduction, O(log m) batched
-    # stages — measured 1.8-2.6x the scan at m=64 and 1.6x at m=512) or
-    # "scan" (the sequential block scan).
+    # stages) or "scan" (the sequential block scan).
     banded_solver: str = "bcr"
     # Planned-merge numeric phase: "chunked" (issue-coalesced row gathers +
-    # one-hot select contracted on the MXU; see ops.elementwise
-    # MERGE_CHUNK_W) or "planned" (two scalar inverse gathers). Measured on
-    # chip r3 (benchmarks/ss_add_bench.py, reference ss_add workload):
-    # chunked w=32 0.19 ms vs planned 7.84 ms (41x) vs scipy 9.2 ms (48x).
+    # one-hot select contracted as a matmul; see ops.elementwise
+    # MERGE_CHUNK_W) or "planned" (two scalar inverse gathers).
     merge_numeric: str = "chunked"
     # spgemm_planned numeric phase: "chunked" (the merge kernel's
     # issue-coalescing generalised to Gustavson expansion — source-order
     # runs served by 4 aligned row gathers + one-hot select, then ONE
-    # permutation gather to destination order; ~2x fewer scalar issues)
-    # or "planned" (two scalar gathers in destination order). "chunked"
-    # silently falls back per plan when any expansion chunk spans >2
-    # matched B rows (short-row operands, where coalescing cannot help).
-    # "mergetree" (r4): coalesced source-order products, then log2(max A
-    # row nnz) rounds of pairwise sorted-stream merges on the ss_add chunk
+    # permutation gather to destination order) or "planned" (two scalar
+    # gathers in destination order). "chunked" silently falls back per
+    # plan when any expansion chunk spans >2 matched B rows (short-row
+    # operands, where coalescing cannot help).
+    # "mergetree": coalesced source-order products, then log2(max A row
+    # nnz) rounds of pairwise sorted-stream merges on the ss_add chunk
     # kernel — no destination permutation and no scalar gathers at all;
     # falls back like "chunked" when streams are too short.
-    # "rowgather" (r4): expansion products from a padded B-ELL via one ROW
+    # "rowgather": expansion products from a padded B-ELL via one ROW
     # gather per A entry (free reshape when B rows are uniform), then ONE
-    # permutation gather to destination order — ~E + nnz_a issues vs the
+    # permutation gather to destination order — ~E + nnz_a gathers vs the
     # planned path's 2·E; falls back when B is too skewed to ELL-pad.
     spgemm_numeric: str = "planned"
-    # Numerics.
-    matmul_precision: str = "highest"  # this env quantizes default matmuls
+    # Numerics. "highest" keeps float32 matmuls and factorizations in full
+    # float32: at the default precision a GPU runs float32 products in
+    # TF32 (about three decimal digits), which the direct solvers' and
+    # the one-hot merges' exactness cannot afford.
+    matmul_precision: str = "highest"
     solve_dtype: str = "float32"
     # Distribution.
     mesh_shape: Optional[Tuple[int, ...]] = None  # None = 1D over all devices
+
+    def __post_init__(self):
+        for name, allowed in CHOICES.items():
+            value = getattr(self, name)
+            if value not in allowed:
+                raise ConfigError(
+                    f"config {name}={value!r}: expected one of {allowed}")
 
     @staticmethod
     def from_env(base: Optional["Config"] = None) -> "Config":
@@ -165,5 +158,13 @@ def matmul_precision():
     """The configured jax matmul precision (lax.Precision)."""
     import jax
 
-    name = get_config().matmul_precision.upper()
-    return getattr(jax.lax.Precision, name, jax.lax.Precision.HIGHEST)
+    return getattr(jax.lax.Precision, get_config().matmul_precision.upper())
+
+
+def factor_precision():
+    """Context manager that traces dense factorizations and triangular
+    solves (``jnp.linalg.cholesky``, ``solve_triangular``, which take no
+    ``precision`` argument) at the configured matmul precision."""
+    import jax
+
+    return jax.default_matmul_precision(get_config().matmul_precision)

@@ -1,4 +1,4 @@
-"""Error model for the TPU sparse framework.
+"""Error model for the sparse framework.
 
 The reference crate uses a ``Result<_, MatErr>`` enum with six variants
 (``/root/reference/src/util.rs:47-55``). In Python we map each variant to an
@@ -37,6 +37,11 @@ class PaddingSizeSmallerThanOriginal(MatErr):
 
 class OutOfBounds(MatErr):
     """Index outside the matrix bounds (util.rs:54)."""
+
+
+class ConfigError(ValueError):
+    """A configuration value outside its allowed choices (no reference
+    counterpart: the reference has no config surface)."""
 
 
 def check(cond: bool, err: type[MatErr], msg: str = "") -> None:

@@ -1,9 +1,11 @@
-"""Weak-scaling study: row-sharded SpMV across 1/2/4/8 devices with
-problem size proportional to device count (BASELINE.md: ≥80% efficiency).
+"""Weak-scaling study: row-sharded SpMM across 1/2/4/8 devices with
+problem size proportional to device count.
 
-On CI this runs against the simulated CPU mesh (set JAX_PLATFORMS=cpu and
---xla_force_host_platform_device_count=8); on a real slice it exercises ICI.
-Emits one JSON line per device count plus an efficiency summary.
+Runs on the backend JAX finds and raises when it has fewer than 2 devices.
+On the CPU, simulate a mesh with JAX_PLATFORMS=cpu and
+XLA_FLAGS=--xla_force_host_platform_device_count=8. Emits one JSON line per
+device count (each naming the platform and device kind) plus an efficiency
+summary.
 
 Usage: python benchmarks/weak_scaling.py [--rows-per-dev 65536]
        [--nnz-per-row 16] [--n-rhs 8]
@@ -29,12 +31,7 @@ def main():
     ap.add_argument("--iters", type=int, default=50)
     args = ap.parse_args()
 
-    from basic_sparse_matrix_tpu.utils.backend import ensure_multidevice
-
-    ensure_multidevice(minimum=2, simulate=8)
-
     import jax
-    import jax.numpy as jnp
 
     from basic_sparse_matrix_tpu.ops.csr import CSR
     from basic_sparse_matrix_tpu.parallel.mesh import row_mesh
@@ -42,6 +39,11 @@ def main():
     from basic_sparse_matrix_tpu.parallel.spmm import spmm_sharded
 
     avail = len(jax.devices())
+    if avail < 2:
+        raise RuntimeError(
+            f"weak scaling needs >= 2 devices; the {jax.default_backend()} "
+            f"backend has {avail}")
+    dev = jax.devices()[0]
     counts = [c for c in (1, 2, 4, 8) if c <= avail]
     results = {}
     rng = np.random.default_rng(0)
@@ -55,20 +57,20 @@ def main():
             rng.standard_normal(nnz).astype(np.float32),
             sum_duplicates=False,
         )
-        b = jnp.asarray(rng.standard_normal((rows, args.n_rhs))
+        b = jax.numpy.asarray(rng.standard_normal((rows, args.n_rhs))
                         .astype(np.float32))
         mesh = row_mesh(num)
         sa = put_sharded(shard_csr(a, num), mesh)
-        y = spmm_sharded(sa, b, mesh)
-        _ = float(jnp.ravel(y)[:1].sum())  # compile + fence
+        jax.block_until_ready(spmm_sharded(sa, b, mesh))  # compile
         t0 = time.perf_counter()
         for _ in range(args.iters):
             y = spmm_sharded(sa, b, mesh)
-        _ = float(jnp.ravel(y)[:1].sum())
+        jax.block_until_ready(y)
         dt = (time.perf_counter() - t0) / args.iters
         results[num] = dt
         print(json.dumps({
-            "group": "weak_scaling_spmv", "devices": num, "rows": rows,
+            "group": "weak_scaling_spmm", "platform": dev.platform,
+            "device_kind": dev.device_kind, "devices": num, "rows": rows,
             "nnz": nnz, "seconds_per_iter": dt,
             "nnz_per_s": float(f"{nnz / dt:.4g}"),
         }), flush=True)

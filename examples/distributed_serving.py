@@ -1,9 +1,11 @@
 """Distributed serving: shard an SPD operator over the device mesh once,
 then serve repeated solves/spectral queries from resident shards.
 
-Run on the simulated 8-device CPU mesh (or any real multi-chip slice):
+Run from the repository root on the GPUs of one host
+(``PYTHONPATH=. python examples/distributed_serving.py``), or on a simulated
+8-device CPU mesh:
 
-    PYTHONPATH=/root/repo JAX_PLATFORMS=cpu \
+    PYTHONPATH=. JAX_PLATFORMS=cpu \
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     python examples/distributed_serving.py
 """
@@ -31,6 +33,10 @@ def lap2d(k):
 
 def main():
     import jax
+
+    from basic_sparse_matrix_tpu.runtime.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     mesh = row_mesh(len(jax.devices()))
     a = lap2d(24)

@@ -41,6 +41,10 @@ def main():
     import jax
     import jax.numpy as jnp
 
+    from basic_sparse_matrix_tpu.runtime.cache import enable_compile_cache
+
+    enable_compile_cache()
+
     from basic_sparse_matrix_tpu import CSR, solve
     from basic_sparse_matrix_tpu.models.pcg import pcg_solve
     from basic_sparse_matrix_tpu.models.solve import solve_sparse

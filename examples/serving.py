@@ -44,6 +44,10 @@ def main():
 
     import jax
 
+    from basic_sparse_matrix_tpu.runtime.cache import enable_compile_cache
+
+    enable_compile_cache()
+
     from basic_sparse_matrix_tpu import CSR, SparseOperator
 
     n = args.k * args.k

@@ -1,16 +1,9 @@
-"""Regression tests for the two round-1 dispatcher bugs (VERDICT.md).
-
-1. ``cholesky_auto``'s supernodal branch assembled the factor WITHOUT the
-   schedule: with ``supernodal_relax > 0`` the analyzed pattern is expanded,
-   so the values misaligned with the rebuilt unexpanded pattern and a
-   silently wrong factor came back. These tests shrink
-   ``dense_cholesky_max_n`` so the supernodal branch actually executes and
-   assert against the dense oracle.
-2. ``bsr_profitable`` crashed (UnboundLocalError) on its cached branch —
-   i.e. on the SECOND ``spmm_auto`` call for any BSR-dispatched matrix on a
-   real TPU. The branch never ran in CI because the heuristic returns False
-   on CPU; ``force=True`` now bypasses that gate so both branches run here,
-   and the full ``spmm_auto`` BSR path is driven twice via monkeypatch.
+"""Regression test for a dispatcher bug: ``cholesky_auto``'s supernodal
+branch assembled the factor WITHOUT the schedule: with
+``supernodal_relax > 0`` the analyzed pattern is expanded, so the values
+misaligned with the rebuilt unexpanded pattern and a silently wrong factor
+came back. These tests shrink ``dense_cholesky_max_n`` so the supernodal
+branch actually executes and assert against the dense oracle.
 """
 
 import dataclasses
@@ -19,7 +12,6 @@ import numpy as np
 import pytest
 
 from basic_sparse_matrix_tpu import CSR
-from basic_sparse_matrix_tpu.ops.pallas import spmm_kernel as _k
 from basic_sparse_matrix_tpu.utils import config as _cfg
 
 
@@ -87,49 +79,3 @@ def test_assemble_factor_rejects_mismatched_values():
         pytest.skip("pattern did not expand at this size")
     with pytest.raises(ValueError, match="does not match"):
         _sn.assemble_factor(a, lvals)  # sched-less rebuild must not truncate
-
-
-def _block_diag_csr(n=256, bs=8):
-    """Block-diagonal SPD-ish pattern: ~3% density → BSR tiles (64, 256)
-    with fill ≈ 3% ≥ bsr_min_fill, below the dense-dispatch density."""
-    d = np.zeros((n, n), dtype=np.float32)
-    rng = np.random.default_rng(7)
-    for b0 in range(0, n, bs):
-        d[b0:b0 + bs, b0:b0 + bs] = rng.standard_normal((bs, bs))
-    return CSR.from_dense(d), d
-
-
-def test_bsr_profitable_cached_branch_no_crash():
-    """Round-1 crash: second bsr_profitable call (with _bsr_cache set) hit
-    UnboundLocalError. Both branches must agree and not raise."""
-    a, _ = _block_diag_csr()
-    first = _k.bsr_profitable(a, 128, force=True)   # no cache yet
-    assert first is True
-    _k.spmm_bsr_from_csr(a, np.zeros((256, 128), np.float32))  # sets cache
-    assert getattr(a, "_bsr_cache", None) is not None
-    second = _k.bsr_profitable(a, 128, force=True)  # cached branch
-    assert second is True
-
-
-def test_spmm_auto_bsr_branch_twice(monkeypatch):
-    """Drive spmm_auto's BSR branch twice on one matrix (the repeated-
-    multiply pattern SparseOperator.matmul serves) vs the gather oracle."""
-    from basic_sparse_matrix_tpu.ops.spmm import spmm, spmm_auto
-
-    a, d = _block_diag_csr()
-    monkeypatch.setattr(_k, "bsr_profitable", _bsr_forced)
-    rng = np.random.default_rng(3)
-    b = rng.standard_normal((256, 64)).astype(np.float32)
-    oracle = np.asarray(spmm(a, b))
-    out1 = np.asarray(spmm_auto(a, b))
-    out2 = np.asarray(spmm_auto(a, b))  # cached-BSR second call crashed
-    assert np.allclose(out1, oracle, rtol=1e-4, atol=1e-4)
-    assert np.allclose(out2, oracle, rtol=1e-4, atol=1e-4)
-    assert np.allclose(out1, d @ b, rtol=1e-3, atol=1e-3)
-
-
-_real_bsr_profitable = _k.bsr_profitable
-
-
-def _bsr_forced(m, n):
-    return _real_bsr_profitable(m, n, force=True)

@@ -1,4 +1,4 @@
-"""Distributed correctness past toy size (VERDICT r4 item 5).
+"""Distributed correctness past toy size.
 
 The r1-r4 mesh tests ran at n <= 64 — no multi-level elimination
 structure, no ragged shard boundaries, one block per device. These drive
@@ -10,8 +10,8 @@ Scale notes (measured on the 2-core CI host): the chunked distributed
 supernodal numeric compiles ~1-2 s per schedule group on CPU, so the
 factorization target is k=13 (27 groups); the iterative/triangular paths
 compile a single program each and run at k=21. The full k=21 chunked
-factorization was verified out-of-suite (rel resid 5.8e-7, 101 s wall —
-see BENCH_RESULTS.md round-5).
+factorization was verified out-of-suite (rel resid 5.8e-7, 101 s wall on
+the CPU).
 """
 
 import numpy as np

@@ -1,4 +1,4 @@
-"""Integer-dtype algebra parity (VERDICT r2 missing-item 3).
+"""Integer-dtype algebra parity.
 
 The reference is generic over T and its benches exercise ``Csr<u32>``
 (``/root/reference/src/sparse.rs:425``, ``benches/sparse_dense_mul.rs:13-23``).

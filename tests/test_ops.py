@@ -250,7 +250,7 @@ def test_spgemm_planned_matches_scipy():
 def test_spgemm_planned_skewed_b_dense_row():
     """The round-1 bounded path needed nnz(A)·max_row(B) capacity — one
     dense row in B blew the budget. The planned path sizes by actual
-    matched lengths (VERDICT r1 item 7)."""
+    matched lengths."""
     import scipy.sparse as sp
 
     from basic_sparse_matrix_tpu.ops.spgemm import spgemm_planned
@@ -275,8 +275,7 @@ def test_spgemm_planned_skewed_b_dense_row():
 
 def test_spgemm_planned_chunked_over_budget(monkeypatch):
     """Expansion beyond EXPANSION_BUDGET no longer refuses: the planner
-    falls back to contiguous row chunks executed independently (VERDICT r2
-    item 5). Budget is shrunk so the chunked path triggers at test scale —
+    falls back to contiguous row chunks executed independently. Budget is shrunk so the chunked path triggers at test scale —
     same code path as a real >2^27 expansion, minus the wait."""
     import scipy.sparse as sp
 
@@ -575,7 +574,7 @@ def test_spgemm_coalesced_fallback_short_rows():
 def test_spgemm_mergetree_matches_planned():
     """The merge-tree numeric phase (config spgemm_numeric="mergetree" —
     coalesced source products + log2(k) pairwise sorted-stream merge
-    rounds, VERDICT r3 item 2) produces the planned path's values on
+    rounds) produces the planned path's values on
     long-row operands, across duplicate-heavy and uneven-k shapes; the
     public wrapper routes through it under the config."""
     import dataclasses as dc

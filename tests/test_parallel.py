@@ -1,5 +1,5 @@
 """Distributed-layer tests on the simulated 8-device CPU mesh
-(SURVEY.md §4: multi-chip paths must be testable without a TPU pod)."""
+(SURVEY.md §4: multi-device paths must be testable without the devices)."""
 
 import jax
 import jax.numpy as jnp

@@ -235,9 +235,9 @@ def test_window_gather_matches_element():
         ap = permute_symmetric(a, nd_permutation(a))
         sched = analyze_supernodal(ap, relax=relax)
         elem = np.asarray(
-            _factorize_supernodal_whole(sched, ap.values, False))
+            _factorize_supernodal_whole(sched, ap.values, "element"))
         win = np.asarray(
-            _factorize_supernodal_whole(sched, ap.values, True))
+            _factorize_supernodal_whole(sched, ap.values, "window"))
         # identical math; XLA fuses the window masks into the einsum
         # differently, so agreement is to the ulp, not bitwise
         np.testing.assert_allclose(elem, win, rtol=1e-6, atol=1e-8,
@@ -273,7 +273,7 @@ def test_window_gather_matches_element():
 
 
 def test_delta_scatter_matches_element():
-    """supernodal_scatter="delta" (one-hot MXU embedding into target-panel
+    """supernodal_scatter="delta" (one-hot matmul embedding into target-panel
     rects + one affine rect scatter) produces the same factor as the
     per-element scatter, across orderings, relax levels, and bucketed
     schedules, and composes with window gathers + chunked programs."""
@@ -299,23 +299,18 @@ def test_delta_scatter_matches_element():
     for name, a, relax in cases:
         sched = analyze_supernodal(a, relax=relax)
         elem = np.asarray(_factorize_supernodal_whole(
-            sched, a.values, False, "element"))
+            sched, a.values, "element", "element"))
         delta = np.asarray(_factorize_supernodal_whole(
-            sched, a.values, False, "delta"))
+            sched, a.values, "element", "delta"))
         # one-hot matmuls copy values exactly; the segment merge sums in
         # a different order than scatter-add, so agreement is to the ulp
         np.testing.assert_allclose(elem, delta, rtol=1e-6, atol=1e-8,
                                    err_msg=name)
-        # manual-DMA panel add-back (interpret mode on CPU)
-        pallas = np.asarray(_factorize_supernodal_whole(
-            sched, a.values, False, "pallas"))
-        np.testing.assert_allclose(elem, pallas, rtol=1e-6, atol=1e-8,
-                                   err_msg=name + " (pallas)")
 
     # delta + window + chunked programs through the public wrapper
     sched = analyze_supernodal(big, relax=8)
     ref = np.asarray(_factorize_supernodal_whole(
-        sched, big.values, False, "element"))
+        sched, big.values, "element", "element"))
     cfg = get_config()
     try:
         set_config(dc.replace(cfg, supernodal_scatter="delta",
